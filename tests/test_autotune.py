@@ -3,8 +3,9 @@ for 1-D, ``:249-290`` for 2-D).
 
 The on-device measurement is injected with a synthetic ground-truth time
 law so the LSQ fit, monotonization, and rank-R SVD factorization are
-exercised CPU-only; the real TPU measurement path is covered by
-``bench_tools/test_table.py`` runs on hardware.
+exercised CPU-only; the device measurement path runs here on the CPU
+at a tiny size (``test_measure_times_the_routed_kernel``) and on the
+GPU through ``bench_tools/test_table.py``.
 """
 
 import numpy as np
@@ -111,3 +112,21 @@ def test_model_vbc_trspmv_time_builds(monkeypatch):
     mdl = at.model_vbc_trspmv_time(U, W)
     assert isinstance(mdl, BlockComponentCostModel)
     assert mdl.rank == 1
+
+
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_measure_times_the_routed_kernel(kind):
+    """The fit's measurement runs operator.route_tr_spmv's kernel."""
+    from vbcs_tpu.formats.csc import CSC
+    from vbcs_tpu.formats.partition import SplitPartition
+    from vbcs_tpu.formats.vbc1d import pack_1dvbc
+    from vbcs_tpu.formats.vbc2d import pack_vbc2d
+
+    C = CSC.from_scipy(at._synth(64, 4, 3, 16, seed=1))
+    if kind == "1d":
+        B = pack_1dvbc(C, SplitPartition.equi(C.n, 4), 4)
+    else:
+        B = pack_vbc2d(C, SplitPartition.equi(C.m, 2),
+                       SplitPartition.equi(C.n, 4), 2, 4)
+    t, kname = at._measure_routed(B, reps=2)
+    assert kname == "xla" and t > 0

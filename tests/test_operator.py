@@ -1,7 +1,10 @@
-"""VBCOperator API (XLA fallback path on CPU) and row reordering."""
+"""VBCOperator API (the XLA device path, here on the CPU) and row
+reordering."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
+import pytest
 import scipy.sparse as sp
 
 from corpus import load_corpus
@@ -14,7 +17,7 @@ CORPUS = load_corpus()
 
 def test_operator_both_directions():
     A = CORPUS["LPnetlib/lp_blend"].astype(np.float64)
-    op = VBCOperator.from_csc(A, W=4, use_pallas=False)
+    op = VBCOperator.from_csc(A, W=4)
     rng = np.random.default_rng(0)
     x = rng.standard_normal(A.shape[0])
     xf = rng.standard_normal(A.shape[1])
@@ -32,7 +35,7 @@ def test_operator_both_directions():
 
 def test_operator_spmm():
     A = CORPUS["LPnetlib/lpi_itest6"].astype(np.float64)
-    op = VBCOperator.from_csc(A, W=4, use_pallas=False)
+    op = VBCOperator.from_csc(A, W=4)
     rng = np.random.default_rng(1)
     X = rng.standard_normal((A.shape[0], 5))
     Xf = rng.standard_normal((A.shape[1], 5))
@@ -46,7 +49,7 @@ def test_operator_spmm():
 
 def test_operator_single_direction_errors():
     A = CORPUS["LPnetlib/lpi_itest6"]
-    op = VBCOperator.from_csc(A, W=4, directions="transposed", use_pallas=False)
+    op = VBCOperator.from_csc(A, W=4, directions="transposed")
     try:
         op.mul(jnp.zeros(A.shape[1]))
         assert False, "expected ValueError"
@@ -99,7 +102,7 @@ def test_alpha_beta_device():
     """Device-side alpha/beta (reference mul!(y,A,x,alpha,beta); alpha
     applied correctly — deliberate fix of the reference quirk)."""
     A = sp.random(60, 80, 0.1, random_state=9, format="csc")
-    op = VBCOperator.from_csc(A, W=4, use_pallas=False)
+    op = VBCOperator.from_csc(A, W=4)
     rng = np.random.default_rng(4)
     x = jnp.asarray(rng.standard_normal(60), jnp.float32)
     y0 = jnp.asarray(rng.standard_normal(80), jnp.float32)
@@ -119,7 +122,7 @@ def test_operator_2d_both_directions():
     A = CORPUS["LPnetlib/lp_blend"].astype(np.float64)
     from vbcs_tpu.operator import VBC2DOperator
 
-    op = VBC2DOperator.from_csc(A, U=4, W=4, use_pallas=False)
+    op = VBC2DOperator.from_csc(A, U=4, W=4)
     rng = np.random.default_rng(3)
     x = rng.standard_normal(A.shape[0])
     xf = rng.standard_normal(A.shape[1])
@@ -148,46 +151,13 @@ def test_operator_2d_both_directions():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_operator_2d_pallas_interpret(monkeypatch):
-    from jax.experimental import pallas as pl
-    from vbcs_tpu.operator import VBC2DOperator
-    from vbcs_tpu.ops import pallas_trspmv2 as pk2
-    from vbcs_tpu.ops import pallas_trspmv2d as pk2d
-    from vbcs_tpu.ops import pallas_spmm as pkm
-    from vbcs_tpu.ops import windowed_gather as wg
-
-    orig = pl.pallas_call
-
-    def patched(*a, **k):
-        k["interpret"] = True
-        k.pop("compiler_params", None)
-        return orig(*a, **k)
-
-    for mod in (pk2, pk2d, pkm, wg):
-        monkeypatch.setattr(mod.pl, "pallas_call", patched)
-
-    A = sp.random(150, 120, 0.06, random_state=5, format="csc")
-    op = VBC2DOperator.from_csc(A, U=4, W=4, use_pallas=True)
-    rng = np.random.default_rng(6)
-    x = rng.standard_normal(A.shape[0]).astype(np.float32)
-    got = np.asarray(op.tr_mul(jnp.asarray(x)))
-    want = (A.T @ x).astype(np.float32)
-    scale = max(1e-6, np.abs(want).max())
-    np.testing.assert_allclose(got / scale, want / scale, atol=1e-5)
-    xf = rng.standard_normal(A.shape[1]).astype(np.float32)
-    gotf = np.asarray(op.mul(jnp.asarray(xf)))
-    wantf = (A @ xf).astype(np.float32)
-    scalef = max(1e-6, np.abs(wantf).max())
-    np.testing.assert_allclose(gotf / scalef, wantf / scalef, atol=1e-5)
-
-
 def test_operator_fp64_basis_parity():
     """Config-1 contract: fp64 bitwise parity vs the dense oracle on
     basis vectors, THROUGH the operator's device path (the XLA device
     kernels run the matrix's own dtype — reference runs Float64,
     test/runtests.jl:15)."""
     A = CORPUS["LPnetlib/lpi_itest6"].astype(np.float64)
-    op = VBCOperator.from_csc(A, W=4, use_pallas=False)
+    op = VBCOperator.from_csc(A, W=4)
     Ad = A.toarray()
     for i in range(A.shape[0]):
         e = np.zeros(A.shape[0])
@@ -208,13 +178,13 @@ def test_operator_bool_int_semirings():
     rng = np.random.default_rng(3)
     dense = (rng.random((40, 30)) < 0.2)
     Ab = sp.csc_matrix(dense)
-    op = VBCOperator.from_csc(Ab, W=4, use_pallas=False)
+    op = VBCOperator.from_csc(Ab, W=4)
     x = rng.standard_normal(40)
     got = np.asarray(op.tr_mul(jnp.asarray(x)))
     np.testing.assert_allclose(got, dense.astype(np.float64).T @ x,
                                rtol=1e-12, atol=1e-12)
     Ai = sp.csc_matrix((dense * rng.integers(1, 9, dense.shape)).astype(np.int32))
-    opi = VBCOperator.from_csc(Ai, W=4, use_pallas=False)
+    opi = VBCOperator.from_csc(Ai, W=4)
     xi = rng.integers(-5, 5, 40).astype(np.int32)
     got_i = np.asarray(opi.tr_mul(jnp.asarray(xi)))
     assert got_i.dtype in (np.int32, np.int64)
@@ -249,11 +219,11 @@ def test_auto_rcm_reorder():
     still matches the oracle (reference analog: the planner choosing
     well on thermal1-like structure, BASELINE.md:77)."""
     A = _grid_laplacian(40)  # 1600 > the 1024 auto threshold
-    op = VBCOperator.from_csc(A, W=4, use_pallas=False, reorder="always")
+    op = VBCOperator.from_csc(A, W=4, reorder="always")
     assert op.row_perm is not None
     from vbcs_tpu.plan.reorder import window_badness
     assert window_badness(op.host_tr) <= window_badness(
-        VBCOperator.from_csc(A, W=4, use_pallas=False,
+        VBCOperator.from_csc(A, W=4,
                              reorder="never").host_tr)
     rng = np.random.default_rng(1)
     x = rng.standard_normal(A.shape[0]).astype(np.float32)
@@ -263,7 +233,7 @@ def test_auto_rcm_reorder():
     got_f = np.asarray(op.mul(jnp.asarray(x)))
     np.testing.assert_allclose(got_f, (A @ x).astype(np.float32),
                                rtol=2e-4, atol=2e-4)
-    # chained (fallback loop on CPU), boundary perms once per call
+    # chained: one jitted loop, boundary perms once per call
     got_c = np.asarray(op.tr_mul_chain(jnp.asarray(x), 2, 0.5))
     want_c = 0.5 * (A.T @ (0.5 * (A.T @ x.astype(np.float64))))
     np.testing.assert_allclose(got_c, want_c.astype(np.float32),
@@ -274,7 +244,7 @@ def test_auto_rcm_mul_mat():
     """mul_mat / tr_mul_mat apply the auto-RCM boundary permutations
     (round-2 advisor finding: mul_mat returned permuted-row output)."""
     A = _grid_laplacian(40)
-    op = VBCOperator.from_csc(A, W=4, use_pallas=False, reorder="always")
+    op = VBCOperator.from_csc(A, W=4, reorder="always")
     assert op.row_perm is not None
     rng = np.random.default_rng(7)
     X = rng.standard_normal((A.shape[1], 3)).astype(np.float32)
@@ -287,10 +257,10 @@ def test_auto_rcm_mul_mat():
 
 
 def test_chain_dtype_and_zero_iters():
-    """tr_mul_chain stays dtype-correct (f64 never silently downcast to
-    the f32 Pallas chain) and n_iters=0 returns x unchanged."""
+    """tr_mul_chain stays dtype-correct (f64 never silently downcast)
+    and n_iters=0 returns x unchanged."""
     A = CORPUS["HB/can_292"].astype(np.float64)
-    op = VBCOperator.from_csc(A, W=4, use_pallas=False)
+    op = VBCOperator.from_csc(A, W=4)
     x = np.random.default_rng(2).standard_normal(A.shape[0])
     out = np.asarray(op.tr_mul_chain(jnp.asarray(x), 2))
     assert out.dtype == np.float64
@@ -299,42 +269,41 @@ def test_chain_dtype_and_zero_iters():
     np.testing.assert_array_equal(out0, x)
 
 
-def test_route_tr_spmv_mirrors_operator_dispatch():
-    """operator.route_tr_spmv is documented as the single source of
-    truth for the shipped per-call kernel (the autotuner fits it, the
-    TABLE harness times it).  Pin it to the branch VBCOperator.tr_mul
-    actually takes across all three tiers so they cannot drift."""
-    import scipy.sparse as sp
+@pytest.mark.parametrize("kind", ["1d", "2d"])
+def test_route_tr_spmv_is_the_operator_path(kind):
+    """operator.route_tr_spmv is the one routing function: the operator's
+    device format is the routed one, and the routed call computes
+    A.T @ x for both packed formats."""
+    from vbcs_tpu.formats.device import VBC1DDevice, VBC2DDevice
+    from vbcs_tpu.operator import VBC2DOperator, route_tr_spmv
+    from vbcs_tpu.ops import xla
 
-    from vbcs_tpu.operator import VBCOperator, route_tr_spmv
+    A = CORPUS["LPnetlib/lp_blend"].astype(np.float64)
+    if kind == "1d":
+        op = VBCOperator.from_csc(A, W=4)
+        dev_type = VBC1DDevice
+    else:
+        op = VBC2DOperator.from_csc(A, U=4, W=4)
+        dev_type = VBC2DDevice
+    name, fmt, call = route_tr_spmv(op.host_tr)
+    assert name == "xla" and call is xla.tr_spmv
+    assert isinstance(fmt, dev_type)
+    assert isinstance(op.device_format("tr"), dev_type)
+    assert jax.tree.structure(fmt) == jax.tree.structure(
+        op.device_format("tr"))
+    x = np.random.default_rng(5).standard_normal(A.shape[0])
+    np.testing.assert_allclose(np.asarray(call(fmt, jnp.asarray(x))),
+                               A.T @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(op.tr_mul(jnp.asarray(x))),
+                               np.asarray(call(fmt, jnp.asarray(x))),
+                               rtol=1e-12, atol=1e-12)
 
-    def op_choice(op):
-        if op._pallas_tr_oneshot() is not False:
-            return "v3_oneshot"
-        if op._pallas_scatter("tr") is not None:
-            return "scatter"
-        return "v2"
 
-    rng = np.random.default_rng(0)
-
-    # v3 tier: banded blocky, uniform-8 plan
-    L, d, m = 256, 6, 2048
-    cs = np.arange(L) * 8 + 4
-    rr = np.clip(cs[:, None] + rng.integers(-40, 40, (L, d)), 0, m - 1)
-    rows = np.repeat(rr.reshape(-1), 8)
-    cols = (np.repeat(np.arange(L) * 8, d)[:, None]
-            + np.arange(8)[None, :]).reshape(-1)
-    A1 = sp.coo_matrix((rng.standard_normal(rows.size).astype(np.float32),
-                        (rows, cols)), shape=(m, m)).tocsc()
-    A1.sum_duplicates()
-
-    # scatter tier: information-free scatter (width-1/2 plans)
-    A2 = sp.random(3000, 3000, 0.001, random_state=9,
-                   format="csc").astype(np.float32)
-
-    for A in (A1, A2):
-        op = VBCOperator.from_csc(A, W=8, reorder="never")
-        kname, _, _ = route_tr_spmv(op.host_tr)
-        assert kname == op_choice(op), (
-            f"route_tr_spmv says {kname}, operator takes "
-            f"{op_choice(op)}")
+def test_device_format_is_cached_per_direction():
+    A = CORPUS["HB/west0132"].astype(np.float64)
+    op = VBCOperator.from_csc(A, W=4)
+    assert op.device_format("tr") is op.device_format("tr")
+    assert op.device_format("fw") is not op.device_format("tr")
+    only_tr = VBCOperator.from_csc(A, W=4, directions="transposed")
+    with pytest.raises(ValueError, match="forward"):
+        only_tr.device_format("fw")

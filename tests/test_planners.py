@@ -144,7 +144,7 @@ def test_constrained_cost_cap():
 
 
 def test_dp_gamma_group_term():
-    """gamma_col (per-8-block-group term, TPU extension): the DP must
+    """gamma_col (per-8-block-group term, an extension of the reference): the DP must
     charge ceil(nb/8)*gamma(w) and rank plans accordingly, and
     total_value must agree with the DP's objective."""
     import scipy.sparse as sp

@@ -1,11 +1,11 @@
-"""vbcs_tpu — TPU-native variable-block sparse linear algebra.
+"""vbcs_tpu — variable-block sparse linear algebra on accelerators.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
+A from-scratch JAX/XLA framework with the capabilities of
 SparseMatrixVBCs.jl (arXiv:2005.12414): 1-D and 2-D Variable Block Column
 sparse formats, optimal-partitioning DP planners over pluggable cost
 models (block count / memory / autotuned execution time), heuristic
-chunkers, SpMV / transposed-SpMV / SpMM kernels, and multi-chip execution
-over a `jax.sharding.Mesh`.
+chunkers, SpMV / transposed-SpMV / SpMM kernels, and multi-device
+execution over a `jax.sharding.Mesh`.
 
 Layering (see SURVEY.md for the reference map):
 
@@ -14,8 +14,8 @@ Layering (see SURVEY.md for the reference map):
 * ``plan``     — Equi/Strict/Overlap chunkers, the DynamicTotalChunker
   optimal DP, AlternatingPacker 2-D optimization.
 * ``models``   — cost models + the on-device autotuned time model.
-* ``ops``      — XLA (jnp) and Pallas compute kernels.
-* ``parallel`` — shard_map distribution across a TPU mesh.
+* ``ops``      — XLA (jnp) compute kernels.
+* ``parallel`` — shard_map distribution across a device mesh.
 * ``native``   — C++ fast paths (converter, DP planner) via ctypes.
 """
 

@@ -34,10 +34,8 @@ def default_1d_partitioner(W: int, val_itemsize: int = 8, idx_itemsize: int = 8)
     its MEMORY model; the autotuned min-time model is a harness-level
     choice there, ``bin/test_table.jl:50-52``, and here:
     ``DynamicTotalChunker(model_1dvbc_trspmv_time(W), W)``, loadable
-    cache-only via ``require_cache=True``).  Measured reason to keep
-    that split (TABLE_r05): on the RCM'd FEM the min-memory plan is
-    within the time model's ~1.4x fidelity band of min-time's, and on
-    narrow-margin calls the byte-exact model is the steadier default."""
+    cache-only via ``require_cache=True``).  The byte-exact memory
+    model needs no measurement, so it is the steadier default."""
     return DynamicTotalChunker(model_1dvbc_memory(val_itemsize, idx_itemsize), W)
 
 

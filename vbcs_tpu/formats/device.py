@@ -1,11 +1,11 @@
 """Static-shape device formats: width-class-binned VBC pytrees.
 
-The central tension of a TPU build of VBC (SURVEY.md §7 "hard parts"):
-XLA needs static shapes, while VBC stripes have variable width w <= W and
-2-D blocks variable height u <= U.  The reference solves the CPU version
+The central tension of a compiled-XLA build of VBC (SURVEY.md §7 "hard
+parts"): XLA needs static shapes, while VBC stripes have variable width
+w <= W and 2-D blocks variable height u <= U.  The reference solves the CPU version
 with runtime if-chains over a small width set generated per kernel
 (``src/multiply_1DVBC.jl:13-18`` via ``le_nest``/``eq_nest``,
-``src/util.jl:28-50``).  The TPU-native answer is *offline binning*:
+``src/util.jl:28-50``).  The answer here is *offline binning*:
 stripes (1-D) / blocks (2-D) are grouped by power-of-two size classes and
 zero-padded to the class size, giving one static-shape tensor bundle per
 class — one kernel instance per class instead of one branch per width.
@@ -23,7 +23,7 @@ Per 1-D class ``c`` (padded width ``w``):
 Per 2-D class (padded ``u x w``): same plus ``rowstart [Q]`` replaces
 ``row`` (the first row of the block's row-block).
 
-All index arrays are int32 (TPU-native index width).
+All index arrays are int32 (XLA's native index width on the device).
 """
 
 from __future__ import annotations
@@ -149,8 +149,8 @@ def bin_vbc1d(
 ) -> VBC1DDevice:
     """Bin a host 1D-VBC matrix into width classes.
 
-    ``block_pad``: pad each class's block count to a multiple (sublane
-    granularity; Pallas kernels later require >= 8).
+    ``block_pad``: pad each class's block count to a multiple of it
+    (padded blocks are all-zero and land in the dropped segment).
     """
     dtype = np.dtype(dtype or B.val.dtype)
     classes = size_classes(B.W)

@@ -1,6 +1,6 @@
 """Contiguous partitions of an index range.
 
-TPU-native re-design of the partition carriers used throughout the
+Re-design of the partition carriers used throughout the
 reference library (``SplitPartition`` / ``MapPartition`` from
 ChainPartitioners.jl; see reference ``src/SparseMatrixVBCs.jl:39,65`` and
 ``src/constructors_VBC.jl:22``).  All indexing here is 0-based.

@@ -17,7 +17,7 @@ Capability parity with the reference type ``SparseMatrix1DVBC{W,Tv,Ti}``
 Unlike the reference we keep the host ``val`` array *exact* (no SIMD tail
 padding — reference ``constructors_1DVBC.jl:35-39``); padding is applied
 when binning into the static-shape device format
-(:mod:`vbcs_tpu.formats.device`), which is the TPU analog of padding for
+(:mod:`vbcs_tpu.formats.device`), the device analog of padding for
 vector lanes.
 
 The converter here is a vectorized re-derivation of the reference's

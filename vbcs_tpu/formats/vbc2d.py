@@ -129,46 +129,6 @@ class VBC2D:
                 D[i0 : i0 + u, j0:j1] = tile
         return D
 
-    def to_1d_view(self):
-        """Zero-copy 1D-VBC view: each u x w block expands to u row
-        slices.  The 2-D row-major tile layout coincides exactly with
-        the 1-D per-row layout, so ``val``/``ofs`` are shared; only the
-        block list (``pos``/``idx``) is expanded.  This is how the
-        Pallas stream kernels execute the 2-D format — the 2-D
-        container's advantage (one index per u x w tile) lives in host
-        storage and the cost models, while the TPU stream is uniform.
-        """
-        from .vbc1d import VBC1D
-
-        heights = self.Pi.widths()
-        widths = self.Phi.widths()
-        # expanded rows per stripe = stripe value count / stripe width
-        sizes = np.diff(self.ofs)
-        with np.errstate(divide="ignore", invalid="ignore"):
-            rows_per_stripe = np.where(widths > 0, sizes // np.maximum(widths, 1), 0)
-        pos1 = np.zeros(self.L + 1, dtype=np.int64)
-        np.cumsum(rows_per_stripe, out=pos1[1:])
-        # expand block row-starts into consecutive row ids
-        u_of_block = heights[self.idx]
-        starts = self.Pi.spl[self.idx]
-        total = int(u_of_block.sum())
-        idx1 = np.zeros(total, dtype=np.int64)
-        if total:
-            base = np.zeros(self.num_blocks + 1, dtype=np.int64)
-            np.cumsum(u_of_block, out=base[1:])
-            off = np.arange(total) - np.repeat(base[:-1], u_of_block)
-            idx1 = np.repeat(starts, u_of_block) + off
-        return VBC1D(
-            m=self.m,
-            n=self.n,
-            W=self.W,
-            Phi=self.Phi,
-            pos=pos1,
-            idx=idx1,
-            ofs=self.ofs,
-            val=self.val,
-        )
-
 
 def pack_vbc2d(
     A: CSC,

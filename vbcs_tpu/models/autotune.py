@@ -1,7 +1,7 @@
 """Autotuned execution-time cost model for the DP planner.
 
 Re-implements the reference's headline capability (``src/costs.jl:12-136``
-and §3.4 of SURVEY.md) TPU-natively: measure the real TrSpMV kernel on
+and §3.4 of SURVEY.md) on the device: measure the real TrSpMV kernel on
 synthetic width-uniform matrices, fit per-width costs by relative-error
 least squares, monotonize, and feed the result to the optimal DP as a
 :class:`~vbcs_tpu.models.cost.ColumnBlockComponentCostModel` with
@@ -9,21 +9,21 @@ per-width tables.
 
 Differences from the reference, by design:
 
-* the benchmarked kernel is the SHIPPED per-call path — the exact
-  kernel ``VBCOperator.tr_mul`` / ``VBC2DOperator.tr_mul`` routes for
-  each synthetic's format (``operator.route_tr_spmv``/``_2d``; the
-  reference likewise times the same ``mul!`` its harness measures,
-  ``src/costs.jl:87-94``) — timed with the difference method
-  (``utils/timing.py``) instead of BenchmarkTools;
-* problem sizes target a fixed HBM-resident working set instead of
-  "half of L2" (``src/costs.jl:44-60``) — TPU has no cache hierarchy to
-  straddle, HBM streaming is the regime that matters;
+* the benchmarked kernel is the one the operators run — the kernel
+  ``VBCOperator.tr_mul`` / ``VBC2DOperator.tr_mul`` route for each
+  synthetic's format (``operator.route_tr_spmv``; the reference
+  likewise times the same ``mul!`` its harness measures,
+  ``src/costs.jl:87-94``) — timed on the host clock around calls that
+  end in ``block_until_ready`` (``utils/timing.py``) instead of
+  BenchmarkTools;
+* problem sizes target a fixed device-memory working set
+  (``target_bytes``) instead of "half of L2" (``src/costs.jl:44-60``);
 * results are disk-cached keyed by (device kind, dtype, W, generator
   params) — the analog of the reference's ``arch_id()``-keyed
   DiskCache (``src/util.jl:52``, ``src/costs.jl:14``).
 
 The fit model (the reference design matrix at ``src/costs.jl:112-122``
-plus the per-excess-group TPU term):
+plus a per-excess-group term):
 ``t ~ alpha_col[w] * L + beta_col[w] * q + gamma_col[w] * E`` for a
 width-w matrix with L stripes, q blocks, and E = sum max(ceil(nb/8)-1,
 0) excess 8-block groups.
@@ -63,7 +63,7 @@ def _arch_id() -> str:
 
 def _synth(L, w, d, band, seed):
     """Width-uniform banded blocky matrix (reference src/costs.jl:63-82
-    plus the locality our windowed kernel exploits)."""
+    plus row locality)."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(seed)
@@ -83,8 +83,8 @@ def _synth(L, w, d, band, seed):
 def _synth_fem(k):
     """5-point grid Laplacian in natural band order (what auto-RCM
     recovers from a scrambled FEM matrix — the bench's fem stage) —
-    the synthetic family where NARROW stripes win on the shipped
-    one-shot kernel (rows scatter across +-k)."""
+    a synthetic family where rows scatter across +-k, so narrow stripes
+    can win."""
     import scipy.sparse as sp
 
     n = k * k
@@ -96,16 +96,11 @@ def _synth_fem(k):
     ).astype(np.float32)
 
 
-def _measure_shipped(B, nnz, reps=8):
-    """Time the SHIPPED per-call TrSpMV (seconds/iter) — the exact
-    kernel ``VBCOperator.tr_mul`` routes for this format
-    (``operator.route_tr_spmv``: v3 one-shot -> scatter -> v2), with
-    the difference method; retries implausible (sub-floor) readings.
-
-    Round-4 verdict: the model used to benchmark the v2 stream class
-    while the operator routed the v3 one-shot, and the min-TIME DP plan
-    measured 15x slower than min-memory on the FEM matrix — a time
-    model must rank plans for the kernel that actually runs."""
+def _measure_routed(B, reps=8):
+    """Seconds per call of the routed TrSpMV for a packed format ``B``
+    (1-D or 2-D) — the kernel the operators' ``tr_mul`` runs
+    (``operator.route_tr_spmv``) — and the route's name.  Host clock
+    around calls that end in ``block_until_ready``."""
     import jax
     import jax.numpy as jnp
 
@@ -116,62 +111,8 @@ def _measure_shipped(B, nnz, reps=8):
     x = jnp.asarray(
         np.random.default_rng(0).standard_normal(B.m), jnp.float32
     )
-
-    def mk(n):
-        def f(fmt, x0, nn):
-            def body(i, xc):
-                return call(fmt, xc) * jnp.float32(0.999)
-
-            return jax.lax.fori_loop(0, nn, body, x0)[0]
-
-        g = jax.jit(f)
-        return lambda: g(fmt, x, n)
-
-    t = periter(mk, 20, 120, reps=reps)
-    floor = nnz / 500e9  # 500 Gnnz/s sanity bound
-    tries = 0
-    while t < floor and tries < 3:
-        t = periter(mk, 20, 220, reps=reps)
-        tries += 1
-    return (t if t >= floor else None), kname
-
-
-def _measure_shipped_2d(B2, nnz, reps=8):
-    """Time the SHIPPED per-call 2-D TrSpMV (seconds/iter) — the exact
-    kernel ``VBC2DOperator.tr_mul`` routes for this format
-    (``operator.route_tr_spmv_2d``: v3-on-1-D-view when the exit is
-    routable, else the dedicated u-blocked kernel); difference method,
-    same retry discipline as :func:`_measure_shipped`.  Chained through
-    a scalar accumulator because 2-D synthetics can be rectangular."""
-    import jax
-    import jax.numpy as jnp
-
-    from ..operator import route_tr_spmv_2d
-    from ..utils.timing import periter
-
-    kname, fmt, call = route_tr_spmv_2d(B2)
-    x = jnp.asarray(
-        np.random.default_rng(0).standard_normal(B2.m), jnp.float32
-    )
-
-    def mk(n):
-        def f(fmt, x0, nn):
-            def body(i, acc):
-                yv = call(fmt, x0 * (1.0 + acc * 1e-30))
-                return acc + yv[0] * 1e-30
-
-            return jax.lax.fori_loop(0, nn, body, jnp.float32(1.0))
-
-        g = jax.jit(f)
-        return lambda: g(fmt, x, n)
-
-    t = periter(mk, 20, 120, reps=reps)
-    floor = nnz / 500e9
-    tries = 0
-    while t < floor and tries < 3:
-        t = periter(mk, 20, 220, reps=reps)
-        tries += 1
-    return (t if t >= floor else None), kname
+    f = jax.jit(call)
+    return periter(lambda: f(fmt, x), reps=reps), kname
 
 
 def autotune_1dvbc_trspmv(
@@ -203,15 +144,12 @@ def autotune_1dvbc_trspmv(
       wide stripes are fast;
     * FEM-like — a 5-point grid Laplacian (natural band order, i.e.
       what auto-RCM produces), equi-partitioned at each width: rows
-      scatter across +-k so wider stripes inflate the one-shot
-      kernel's per-vreg window count and multi-group scan machinery.
-      Without these samples the fit only ever saw width-friendly
-      matrices and the min-time DP anti-ranked plans on the FEM bench
-      matrix (round-4 verdict: 15x slower than min-memory).
+      scatter across +-k, so wider stripes gather x from farther apart.
+      Without these samples the fit only sees width-friendly matrices
+      and can anti-rank plans on FEM matrices.
     """
-    os.makedirs(_CACHE_DIR, exist_ok=True)
     key = json.dumps(
-        dict(W=W, d=d, tb=target_bytes, band=band, arch=_arch_id(), v=7)
+        dict(W=W, d=d, tb=target_bytes, band=band, arch=_arch_id(), v=8)
     )
     path = os.path.join(
         _CACHE_DIR, hashlib.sha256(key.encode()).hexdigest()[:24] + ".json"
@@ -236,9 +174,7 @@ def autotune_1dvbc_trspmv(
         if measure is not None:
             t, kname = measure(B, w), "injected"
         else:
-            # difference-method timing is noisy on the remote TPU; use
-            # long chains and retry implausible results (sub-ns/nnz).
-            t, kname = _measure_shipped(B, B.num_blocks * w)
+            t, kname = _measure_routed(B)
         if t is None:
             return  # drop this sample
         nb = (B.pos[1:] - B.pos[:-1]).astype(np.int64)
@@ -277,16 +213,13 @@ def autotune_1dvbc_trspmv(
     # relative-error LSQ on one-hot design (reference src/costs.jl:112-122).
     # NO m column: the reference's synthetics have m independent of L*w,
     # but ours are square (m == L*w exactly), which makes an m column
-    # collinear with the L*e_w block — the first TPU fit with it
-    # returned a degenerate w-linear alpha_col (~4.9us*w per stripe)
-    # compensated by a huge negative alpha_row, wrecking the
-    # predicted-vs-measured fidelity column.  The per-stripe alpha
-    # absorbs the row term.  Third feature block: E = sum
-    # max(ceil(nb/8) - 1, 0) (EXCESS 8-block groups — multi-group
-    # stripes drag the scan/straddle machinery) — the only feature
-    # that separates a single-group width-8 stripe (the flagship:
-    # fast) from a 4-group FEM width-8 stripe (slow); charging TOTAL
-    # groups forced a negative alpha that clipping re-broke.
+    # collinear with the L*e_w block, and a fit with it returns a
+    # degenerate w-linear alpha_col compensated by a huge negative
+    # alpha_row.  The per-stripe alpha absorbs the row term.  Third
+    # feature block: E = sum max(ceil(nb/8) - 1, 0) (EXCESS 8-block
+    # groups) separates a single-group stripe from a multi-group one;
+    # charging TOTAL groups forces a negative alpha that clipping
+    # re-breaks.
     N = len(ts)
     D = np.zeros((N, 3 * W))
     for i in range(N):
@@ -299,17 +232,16 @@ def autotune_1dvbc_trspmv(
     beta = sol[W:2 * W].copy()
     gamma = sol[2 * W:].copy()
     # NO width-monotonization (deliberate departure from the reference
-    # discipline, src/costs.jl:127-131): on the CPU a wider stripe
-    # always costs more per stripe, but the v3 kernel's width classes
-    # are lane-padded — w=8 is the sweet spot and w=5..7 are genuinely
-    # 2-3x COSTLIER per stripe (measured), so forcing alpha[8] >=
-    # alpha[7] lifted the flagship's width-8 cost 10x above its
-    # measurement and the min-time DP stopped picking it.  Clip at >= 0
-    # only.
+    # discipline, src/costs.jl:127-131): the device format pads widths
+    # to power-of-two classes, so w=5..7 stream as many values as w=8
+    # and can cost more per stripe than w=8; forcing alpha[8] >=
+    # alpha[7] would lift the width-8 cost above its measurement.
+    # Clip at >= 0 only.
     alpha = np.maximum(alpha, 0.0)
     beta = np.maximum(beta, 0.0)
     gamma = np.maximum(gamma, 0.0)
     if cache:
+        os.makedirs(_CACHE_DIR, exist_ok=True)
         json.dump(
             {"alpha": alpha.tolist(), "beta": beta.tolist(),
              "gamma": gamma.tolist(), "data": dict(
@@ -332,7 +264,7 @@ def _synth2d(K, u, L, w, d, band, seed):
     """(u, w)-uniform 2-D blocky matrix: K row blocks of height u, L
     column stripes of width w, ~d dense u x w tiles per stripe placed
     near the diagonal (reference's 2-D synthetic family,
-    ``src/costs.jl:195-222``, plus banding for the windowed kernel)."""
+    ``src/costs.jl:195-222``, plus banding for row locality)."""
     import scipy.sparse as sp
 
     rng = np.random.default_rng(seed)
@@ -373,23 +305,19 @@ def autotune_vbc_trspmv(
     from the SVD factorization of the monotonized beta[u, w] grid
     (reference ``src/costs.jl:279-284``).
 
-    The benchmarked kernel is the SHIPPED 2-D per-call path
-    (``operator.route_tr_spmv_2d``): the v3 exact two-take gather on
-    the 1-D view when its exit is routable, else the dedicated
-    u-blocked 2-D stream kernel — exactly what ``VBC2DOperator.tr_mul``
-    runs for that (u, w) synthetic.
+    The benchmarked kernel is the one ``VBC2DOperator.tr_mul`` runs
+    for that (u, w) synthetic (``operator.route_tr_spmv``).
 
     ``subsample=True`` measures only power-of-two block sizes (plus U/W)
-    and linearly interpolates the remaining table entries — on the remote
-    TPU every (u, w) cell costs two kernel compiles, so the full U x W
-    grid is compile-bound.  The reference measures every size
+    and linearly interpolates the remaining table entries — every
+    (u, w) cell costs a kernel compile, so the full U x W grid is
+    compile-bound.  The reference measures every size
     (``src/costs.jl:195``); its per-size cost is a JIT already warm.
     """
-    os.makedirs(_CACHE_DIR, exist_ok=True)
     key = json.dumps(
         dict(
             U=U, W=W, d=d, tb=target_bytes, band=band, arch=_arch_id(),
-            sub=bool(subsample), v=4,
+            sub=bool(subsample), v=5,
         )
     )
     path = os.path.join(
@@ -457,8 +385,7 @@ def autotune_vbc_trspmv(
                 if measure is not None:
                     t = measure(B2, u, w)
                 else:
-                    t, _kname = _measure_shipped_2d(
-                        B2, B2.num_blocks * u * w)
+                    t, _kname = _measure_routed(B2)
                 if t is None:
                     continue
                 Ks.append(len(B2.Pi))
@@ -510,6 +437,7 @@ def autotune_vbc_trspmv(
     beta_row = tuple(Um[:, r] * np.sqrt(s[r]) for r in range(R))
     beta_col = tuple(Vt[r, :] * np.sqrt(s[r]) for r in range(R))
     if cache:
+        os.makedirs(_CACHE_DIR, exist_ok=True)
         json.dump(
             {
                 "alpha_row": alpha_row.tolist(),

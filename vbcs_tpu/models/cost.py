@@ -93,16 +93,13 @@ class ColumnBlockComponentCostModel:
     Reference: ``ColumnBlockComponentCostModel{Tv}(alpha_col, beta_col)``;
     built at ``src/costs.jl:10`` (memory) and ``:12`` (autotuned time).
 
-    ``gamma_col`` is a TPU extension the reference has no analog for:
-    the v3 stream kernel's work unit is the 8-block GROUP (one vreg
-    lane column), and stripes with MORE than one group additionally
-    drag the segmented-scan + straddle-carry machinery.  gamma charges
-    each EXCESS group (the first is in alpha): without it, a per-width
-    fit cannot simultaneously price a single-group width-8 stripe (the
-    flagship, fast) and a 4-group FEM width-8 stripe (~6x costlier per
-    group), and the min-time DP anti-ranks one of the two matrices —
-    with a per-TOTAL-group term the fit needed a negative alpha and
-    clipping re-broke the ranking; the excess form stays nonnegative.
+    ``gamma_col`` is an extension the reference has no analog for: it
+    charges each EXCESS 8-block group of a stripe (the first is in
+    alpha), for kernels whose cost steps with every 8 blocks.  Without
+    it, a per-width fit cannot price a single-group stripe and a
+    multi-group stripe of the same width at once; with a per-TOTAL-group
+    term the fit needs a negative alpha, which clipping breaks, while
+    the excess form stays nonnegative.
     Defaults to zero (reference-equivalent behavior)."""
 
     alpha_col: Component

@@ -1,43 +1,61 @@
-"""ctypes bindings for the C++ fast paths (lazy-built with g++).
+"""ctypes bindings for the C++ fast paths (built with g++ at first use).
 
 Set ``VBCS_NO_NATIVE=1`` to force the pure-NumPy implementations.
-The shared library is built once into this directory and reused.
+The shared library is built from ``vbc_native.cpp`` into ``_build/``
+(git-ignored) under a name carrying a hash of the source, so an edited
+source is rebuilt and a library built elsewhere is never loaded.  It is
+compiled for the generic target of the host architecture (no
+``-march=native``), so a checkout moved to another CPU still runs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
+import tempfile
 import threading
+import warnings
 
 import numpy as np
 
 _HERE = os.path.dirname(__file__)
 _SRC = os.path.join(_HERE, "vbc_native.cpp")
-_SO = os.path.join(_HERE, "libvbcnative.so")
+_BUILD_DIR = os.path.join(_HERE, "_build")
 _lock = threading.Lock()
 _lib = None
 _failed = False
 
 
-def _build() -> bool:
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        _SRC,
-        "-o",
-        _SO,
-    ]
+def _so_path() -> str:
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    return os.path.join(_BUILD_DIR, f"libvbcnative-{digest}.so")
+
+
+def _build(so: str) -> bool:
+    """Compile to a temporary name, then rename: concurrent first users
+    (test workers) never load a half-written library."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError) as e:
+        detail = getattr(e, "stderr", b"") or b""
+        warnings.warn(
+            f"native library build failed ({e}); using the NumPy paths. "
+            f"{detail.decode(errors='replace')[-2000:]}",
+            RuntimeWarning,
+        )
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def get_lib():
@@ -48,15 +66,15 @@ def get_lib():
     with _lock:
         if _lib is not None or _failed:
             return _lib
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(
-            _SRC
-        ):
-            if not _build():
-                _failed = True
-                return None
+        so = _so_path()
+        if not os.path.exists(so) and not _build(so):
+            _failed = True
+            return None
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            warnings.warn(f"native library load failed ({e}); using the "
+                          "NumPy paths.", RuntimeWarning)
             _failed = True
             return None
         i64p = ctypes.POINTER(ctypes.c_int64)
@@ -78,22 +96,9 @@ def get_lib():
             ctypes.c_int64, i64p, i64p, ctypes.c_double, ctypes.c_int64,
             i64p, i64p,
         ]
-        lib.stream_chunk_plan.argtypes = [
-            ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64,
-            i64p, i64p, i64p, i64p, i64p, i64p, i64p, i64p,
-        ]
-        u8p = ctypes.POINTER(ctypes.c_uint8)
-        i16p = ctypes.POINTER(ctypes.c_int16)
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        lib.match_joint.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            i64p, u8p, i64p, i64p, i64p, i64p,
-            i64p, i64p, i64p, i16p, i64p, i64p, i64p,
-        ]
-        lib.clos_route.argtypes = [
-            ctypes.c_int64, i64p, u8p, ctypes.c_int64,
-            i32p, i32p, i64p, i64p,
-        ]
+        for fn in (lib.dp_partition, lib.pack_1dvbc_count,
+                   lib.pack_1dvbc_fill, lib.overlap_chunk):
+            fn.restype = None
         _lib = lib
         return _lib
 
@@ -196,120 +201,3 @@ def overlap_chunk_native(n, pos, idx, rho, w_max):
         _p64(out_spl), _p64(out_len),
     )
     return out_spl[: int(out_len[0])]
-
-
-def stream_chunk_plan_native(ngr: np.ndarray, NG: int, NS: int):
-    """Chunk planning for the stream packer; returns (pieces [P, 4],
-    straddle [T], nslots [T]) or None if the lib is unavailable.
-    Identical output to the Python loop in pallas_trspmv2._pack_class."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    ngr = np.ascontiguousarray(ngr, dtype=np.int64)
-    S = ngr.size
-    cap = int(S + ngr.sum() // max(NG, 1) + 2)
-    pi = np.empty(cap, dtype=np.int64)
-    pg0 = np.empty(cap, dtype=np.int64)
-    pg1 = np.empty(cap, dtype=np.int64)
-    pch = np.empty(cap, dtype=np.int64)
-    straddle = np.empty(cap, dtype=np.int64)
-    nslots = np.empty(cap, dtype=np.int64)
-    out_np = np.zeros(1, dtype=np.int64)
-    out_nc = np.zeros(1, dtype=np.int64)
-    lib.stream_chunk_plan(
-        S, _p64(ngr), NG, NS,
-        _p64(pi), _p64(pg0), _p64(pg1), _p64(pch),
-        _p64(straddle), _p64(nslots), _p64(out_np), _p64(out_nc),
-    )
-    P, T = int(out_np[0]), int(out_nc[0])
-    pieces = np.stack([pi[:P], pg0[:P], pg1[:P], pch[:P]], axis=1)
-    return pieces, straddle[:T].astype(np.int32), nslots[:T].astype(np.int32)
-
-
-def match_joint_native(T, nv, vreg_of_blk, modes, real,
-                       stripe_of_grp=None):
-    """C++ joint A-table matcher for the v3 stream packer; None if the
-    lib is unavailable (callers fall back to the Python oracle).
-
-    Exact port: identical sub/window assignments, A-tables, and reflow
-    decisions to ``pallas_trspmv3._match_joint`` (parity-tested,
-    tests/test_pallas_v3.py)."""
-    lib = get_lib()
-    M = len(modes)
-    if lib is None or M > 2:
-        return None
-    MAX_NWIN = 7
-    nblk = int(real.size)
-    nvreg = int(T * nv)
-    ngrp = nblk // 8
-    vreg = np.ascontiguousarray(vreg_of_blk, dtype=np.int64)
-    real_u8 = np.ascontiguousarray(real, dtype=np.uint8)
-    hs_a = np.ascontiguousarray(
-        np.stack([m[0] for m in modes]), dtype=np.int64).reshape(-1)
-    tile_a = np.ascontiguousarray(
-        np.stack([m[1] for m in modes]), dtype=np.int64).reshape(-1)
-    lo_a = np.ascontiguousarray(
-        np.stack([m[2] for m in modes]), dtype=np.int64).reshape(-1)
-    sog = (np.ascontiguousarray(stripe_of_grp, dtype=np.int64)
-           if stripe_of_grp is not None else None)
-    sub_assign = np.zeros(nblk, dtype=np.int64)
-    win_assign = np.zeros(M * nblk, dtype=np.int64)
-    win_tiles = np.full((M, nvreg, MAX_NWIN), -1, dtype=np.int64)
-    tables = np.full((M, nvreg, MAX_NWIN, 8, 128), -1, dtype=np.int16)
-    nwin_v = np.zeros((M, nvreg), dtype=np.int64)
-    failed = np.zeros(max(ngrp, 1), dtype=np.int64)
-    n_failed = np.zeros(1, dtype=np.int64)
-    lib.match_joint(
-        int(T), int(nv), int(M), int(nblk),
-        _p64(vreg),
-        real_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        _p64(hs_a), _p64(tile_a), _p64(lo_a),
-        _p64(sog) if sog is not None else None,
-        _p64(sub_assign), _p64(win_assign), _p64(win_tiles),
-        tables.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
-        _p64(nwin_v), _p64(failed), _p64(n_failed),
-    )
-    nf = int(n_failed[0])
-    if nf:
-        return set(int(s) for s in failed[:nf])
-    out = []
-    for mo in range(M):
-        nwin = max(1, int(nwin_v[mo].max(initial=1)))
-        wt = win_tiles[mo]
-        # unused window slots point at the vreg's first window (in-bounds)
-        first = np.where(wt[:, 0] >= 0, wt[:, 0], 0)
-        for j in range(MAX_NWIN):
-            wt[:, j] = np.where(wt[:, j] >= 0, wt[:, j], first)
-        out.append((win_assign[mo * nblk:(mo + 1) * nblk], wt[:, :nwin],
-                    nwin, tables[mo][:, :nwin]))
-    return sub_assign, out
-
-
-def clos_route_native(seg_vals: np.ndarray, seg_mask: np.ndarray,
-                      max_w: int):
-    """C++ Clos 3-take router (windowed_gather.pack_clos inner loop);
-    returns (planes [nseg, max_w, 8, 128] i32, xtiles [nseg, max_w] i32,
-    nwin [nseg] i64), False if the map cannot route, or None if the
-    lib is unavailable.  Exact port: identical planes/xtiles/row
-    choices to the Python loop (parity-tested)."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    seg_vals = np.ascontiguousarray(seg_vals, dtype=np.int64)
-    seg_mask = np.ascontiguousarray(seg_mask, dtype=np.uint8)
-    nseg = seg_vals.shape[0]
-    planes = np.zeros((nseg, max_w, 8, 128), dtype=np.int32)
-    xtiles = np.zeros((nseg, max_w), dtype=np.int32)
-    nwin = np.zeros(nseg, dtype=np.int64)
-    ok = np.zeros(1, dtype=np.int64)
-    lib.clos_route(
-        int(nseg), _p64(seg_vals),
-        seg_mask.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-        int(max_w),
-        planes.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        xtiles.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-        _p64(nwin), _p64(ok),
-    )
-    if not int(ok[0]):
-        return False
-    return planes, xtiles, nwin

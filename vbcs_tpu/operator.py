@@ -1,104 +1,57 @@
 """VBCOperator — the user-facing sparse operator.
 
 Bundles everything a user of the reference library gets from
-``SparseMatrix1DVBC`` / ``SparseMatrixVBC`` plus TPU execution:
+``SparseMatrix1DVBC`` / ``SparseMatrixVBC`` plus device execution:
 
 * plan (any chunker / DP method) + pack on ingest;
-* ``A @ x``, ``A.T @ x``, ``A @ X``, ``A.T @ X`` on TPU via the Pallas
-  stream kernels, with the XLA segment-sum kernels as a portable
-  fallback (CPU tests, unsupported shapes);
+* ``A @ x``, ``A.T @ x``, ``A @ X``, ``A.T @ X`` on the accelerator
+  through the XLA kernels of :mod:`vbcs_tpu.ops.xla`, each call one
+  jitted executable;
 * host NumPy oracles for verification (``.host``);
-* memory/cost introspection (``memory_bytes``, ``modeled_cost``).
+* memory/cost introspection (``memory_bytes``).
 
-TPU-first design notes:
+Design notes:
 
 * The *forward* SpMV (a scatter in the reference,
   ``src/multiply_1DVBC.jl:13-83``, which forced its kernel sequential)
-  is realized scatter-free by also packing ``A.T`` column-striped and
-  running the gather-style kernel on it — the two directions are two
-  stream formats over the same data.  ``plan_forward``/``plan_transposed``
-  control which directions are materialized.
-* Rows can be pre-permuted for x-window locality (see
-  ``plan.reorder``); the operator carries the permutation and applies
-  it at the boundaries.
+  runs as the gather-style kernel on a second pack of ``A.T`` — the two
+  directions are two device formats over the same data.  ``directions``
+  controls which are materialized.
+* Rows can be pre-permuted for locality (see ``plan.reorder``); the
+  operator carries the permutation and applies it at the boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 from .api import default_1d_partitioner
 from .formats.csc import CSC
-from .formats.device import bin_vbc1d
+from .formats.device import bin_vbc1d, bin_vbc2d
 from .formats.vbc1d import VBC1D, pack_1dvbc
+from .ops import xla
 from .plan.alternating import pack_stripe
 
 
 def route_tr_spmv(B):
-    """The per-call TrSpMV kernel :meth:`VBCOperator.tr_mul` routes for
-    a packed f32 format ``B`` — ``(name, fmt, call)`` with
-    ``call(fmt, x) -> y``.
+    """The device kernel that computes ``B.T @ x`` for a packed host
+    format ``B`` (:class:`VBC1D` or :class:`VBC2D`): ``(name, fmt,
+    call)`` with ``call(fmt, x) -> y``.
 
-    Single source of truth for harnesses that must measure the SHIPPED
-    path: ``models/autotune`` fits the time model to this routing and
-    ``bench_tools/test_table`` times it (the reference's fidelity
-    contract times the same ``mul!(y,B',x)`` the autotuner benchmarks,
-    ``src/costs.jl:87-94`` vs ``bin/test_table.jl:80``).  Implemented
-    ON TOP OF a real :class:`VBCOperator`'s cached format accessors —
-    the same pack guards ``tr_mul`` consults — so a guard change
-    cannot produce a different kernel here than users run (only the
-    branch ORDER is mirrored, and tests/test_operator.py pins it)."""
-    from .ops.pallas_scatter import tr_spmv_scatter
-    from .ops.pallas_trspmv2 import tr_spmv_pallas2
-    from .ops.pallas_trspmv3 import tr_spmv_oneshot3
-
-    op = VBCOperator(m=B.m, n=B.n, host_tr=B, host_fw=None,
-                     use_pallas=True)
-    fmt3o = op._pallas_tr_oneshot()
-    if fmt3o is not False:
-        return "v3_oneshot", fmt3o, tr_spmv_oneshot3
-    fmt_sc = op._pallas_scatter("tr")
-    if fmt_sc is not None:
-        return "scatter", fmt_sc, tr_spmv_scatter
-    return "v2", op._pallas_tr(), tr_spmv_pallas2
-
-
-def _v3_view_worthwhile(fmt3) -> bool:
-    """SINGLE source of truth for the 2-D routing guard (used by both
-    :func:`route_tr_spmv_2d` and ``VBC2DOperator._v3_oneshot`` so the
-    autotuner can never fit a different kernel than ``tr_mul`` runs):
-    prefer the v3 exact two-take gather on the 1-D view only when its
-    exit is the free reshape (natural) or a single-pass permute with
-    the free sublane-major store.  Measured on the blocky2d bench: a
-    multipass exit runs 5.96 Gnnz/s and the slot-store Eklundh exit
-    10.0, vs the dedicated u-blocked kernel's 17.7-18.6."""
-    from .ops.multipass import MultipassPlan
-
-    return fmt3 is not None and (
-        fmt3.natural
-        or (fmt3.exit_plan is not None
-            and not isinstance(fmt3.exit_plan, MultipassPlan)
-            and not fmt3.slot_store)
-    )
-
-
-def route_tr_spmv_2d(B2):
-    """The per-call kernel :meth:`VBC2DOperator.tr_mul` routes for a
-    packed 2-D format ``B2`` — ``(name, fmt, call)``: the v3 exact
-    two-take gather on the 1-D view when :func:`_v3_view_worthwhile`,
-    else the dedicated u-blocked 2-D stream kernel."""
-    import jax
-
-    from .ops.pallas_trspmv2d import pack_stream_vbc2d, tr_spmv_pallas_2d
-    from .ops.pallas_trspmv3 import pack_stream3, tr_spmv_oneshot3
-
+    The one routing function: the operators build their device formats
+    through it, ``models/autotune`` fits its time model to it and
+    ``bench_tools/test_table`` times it, so all three measure the same
+    kernel (the reference's fidelity contract times the same
+    ``mul!(y,B',x)`` the autotuner benchmarks, ``src/costs.jl:87-94``
+    vs ``bin/test_table.jl:80``)."""
     with jax.ensure_compile_time_eval():
-        fmt3 = pack_stream3(B2.to_1d_view(), mode="nat")
-        if _v3_view_worthwhile(fmt3):
-            return "v3_oneshot", fmt3, tr_spmv_oneshot3
-        return "2d", pack_stream_vbc2d(B2), tr_spmv_pallas_2d
+        fmt = bin_vbc1d(B) if isinstance(B, VBC1D) else bin_vbc2d(B)
+    return "xla", fmt, xla.tr_spmv
 
 
 def _axpby(out, alpha, beta, y):
@@ -110,31 +63,48 @@ def _axpby(out, alpha, beta, y):
     return out
 
 
+@partial(jax.jit, static_argnums=0)
+def _apply(kernel, fmt, x, perm, inv, alpha, beta, y):
+    """One operator call as one executable: entry permutation, kernel,
+    exit permutation, alpha/beta epilogue (``None`` parts vanish)."""
+    if perm is not None:
+        x = x[perm]
+    out = kernel(fmt, x)
+    if inv is not None:
+        out = out[inv]
+    return _axpby(out, alpha, beta, y)
+
+
+@jax.jit
+def _chain(fmt, x, n_iters, perm, inv, alpha):
+    """(alpha * A.T)^n_iters @ x; a symmetric relabeling maps permuted
+    space to itself, so the boundary permutations are paid once."""
+    if perm is not None:
+        x = x[perm]
+
+    def body(i, xc):
+        out = xla.tr_spmv(fmt, xc)
+        return out if alpha is None else out * jnp.asarray(alpha, out.dtype)
+
+    x = jax.lax.fori_loop(0, n_iters, body, x)
+    return x if inv is None else x[inv]
+
+
 def _as_csc(A) -> CSC:
     return A if isinstance(A, CSC) else CSC.from_scipy(A)
 
 
 @dataclasses.dataclass
 class VBCOperator:
-    """Sparse matrix operator in 1D-VBC form, TPU-executable."""
+    """Sparse matrix operator in 1D-VBC form, device-executable."""
 
     m: int
     n: int
     host_tr: VBC1D | None  # column-striped A (for A.T @ x)
     host_fw: VBC1D | None  # column-striped A.T (for A @ x)
-    _fmt_tr: object = None  # pallas stream format (lazy)
-    _fmt_fw: object = None
-    _fmt_tr3: object = None  # pallas v3 chain format (lazy; False = n/a)
-    _fmt_tr3o: object = None  # pallas v3 one-shot (nat) format (lazy)
-    _fmt_fw3o: object = None
-    _fmt_tr4m: object = None  # pallas v4 streaming SpMM format (lazy)
-    _fmt_sc_tr: object = None  # routed scatter format (lazy; False = n/a)
-    _fmt_sc_fw: object = None
-    _dev_tr: object = None  # XLA device format (lazy)
-    _dev_fw: object = None
-    use_pallas: bool = True
     row_perm: object = None  # symmetric relabeling (auto-RCM), or None
-    _perm_plans: object = None  # lazy (entry, exit) permute plans
+    _dev: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)  # lazy device arrays
 
     # ---- construction ----------------------------------------------------
 
@@ -145,7 +115,6 @@ class VBCOperator:
         method=None,
         method_forward=None,
         directions: str = "both",
-        use_pallas: bool | None = None,
         reorder: str = "auto",
     ) -> "VBCOperator":
         """Plan + pack ``A`` (and/or ``A.T``) into VBC operators.
@@ -155,18 +124,14 @@ class VBCOperator:
         of A.T (defaults to ``method``).
 
         ``reorder``: "auto" applies a *symmetric* RCM relabeling when a
-        cheap locality estimate says a material share of the stream
-        vregs would exceed the Pallas x-window budget (scattered FEM
-        matrices like Schmid/thermal1 become banded); "never"/"always"
-        force it off/on.  The operator carries the permutation and
-        applies it at the call boundaries, so chained multiplies stay
-        in permuted space.
+        cheap locality estimate (``plan.reorder.window_badness``) says a
+        material share of the block stream gathers x from far-apart rows
+        (scattered FEM matrices like Schmid/thermal1 become banded);
+        "never"/"always" force it off/on.  The operator carries the
+        permutation and applies it at the call boundaries, so chained
+        multiplies stay in permuted space.
         """
-        import jax
-
         A = _as_csc(A)
-        if use_pallas is None:
-            use_pallas = jax.devices()[0].platform == "tpu"
         method = method or default_1d_partitioner(W, A.val.dtype.itemsize)
         method_forward = method_forward or method
 
@@ -196,49 +161,8 @@ class VBCOperator:
             Phi_f = pack_stripe(At, method_forward)
             host_fw = pack_1dvbc(At, Phi_f, W)
         return VBCOperator(
-            m=A.m, n=A.n, host_tr=host_tr, host_fw=host_fw,
-            use_pallas=bool(use_pallas), row_perm=row_perm,
+            m=A.m, n=A.n, host_tr=host_tr, host_fw=host_fw, row_perm=row_perm
         )
-
-    # ---- boundary permutations (auto-RCM) ---------------------------------
-
-    def _boundary_plans(self):
-        if self._perm_plans is None:
-            import jax
-
-            from .ops import windowed_gather as wg
-
-            perm = np.asarray(self.row_perm, dtype=np.int64)
-            inv = np.empty_like(perm)
-            inv[perm] = np.arange(perm.size)
-            with jax.ensure_compile_time_eval():
-                self._perm_plans = (
-                    (wg.pack_permute(perm, perm.size), perm),
-                    (wg.pack_permute(inv, inv.size), inv),
-                )
-        return self._perm_plans
-
-    def _to_permuted(self, x):
-        """x -> x[perm] on device."""
-        from .ops import windowed_gather as wg
-
-        (plan, perm), _ = self._boundary_plans()
-        if plan is not None and self.use_pallas and x.dtype == np.float32:
-            return wg.apply_permute(plan, x)
-        import jax.numpy as jnp
-
-        return x[jnp.asarray(perm)]
-
-    def _from_permuted(self, y):
-        """y_permuted -> natural order."""
-        from .ops import windowed_gather as wg
-
-        _, (plan, inv) = self._boundary_plans()
-        if plan is not None and self.use_pallas and y.dtype == np.float32:
-            return wg.apply_permute(plan, y)
-        import jax.numpy as jnp
-
-        return y[jnp.asarray(inv)]
 
     @property
     def shape(self):
@@ -254,131 +178,38 @@ class VBCOperator:
 
     # ---- lazy device packing --------------------------------------------
 
-    def _pallas_tr(self):
-        if self._fmt_tr is None:
-            import jax
-
-            from .ops.pallas_trspmv2 import pack_stream2
-
-            with jax.ensure_compile_time_eval():
-                self._fmt_tr = pack_stream2(self.host_tr)
-        return self._fmt_tr
-
-    def _pallas_tr_chain(self):
-        """v3 fused-chain format, or False if the matrix doesn't qualify
-        (multi-width classes, non-square, or gather-matching failure)."""
-        if self._fmt_tr3 is None:
-            import jax
-
-            from .ops.pallas_trspmv3 import pack_stream3
-
-            with jax.ensure_compile_time_eval():
-                self._fmt_tr3 = pack_stream3(self.host_tr)
-            if self._fmt_tr3 is None:
-                self._fmt_tr3 = False
-        return self._fmt_tr3
-
-    def _pallas_tr_oneshot(self):
-        """v3 one-shot (natural-gather) format, or False if the matrix
-        doesn't qualify (non-square, width > 8, matching failure)."""
-        if self._fmt_tr3o is None:
-            import jax
-
-            from .ops.pallas_trspmv3 import pack_stream3
-
-            with jax.ensure_compile_time_eval():
-                self._fmt_tr3o = pack_stream3(self.host_tr, mode="nat")
-            if self._fmt_tr3o is None:
-                self._fmt_tr3o = False
-        return self._fmt_tr3o
-
-    def _pallas_spmm4(self):
-        """v4 streaming SpMM format (k in lanes), or False if out of
-        scope (multi-class, non-uniform stripes, scattered rows)."""
-        if self._fmt_tr4m is None:
-            import jax
-
-            from .ops.pallas_spmm4 import pack_spmm4
-
-            with jax.ensure_compile_time_eval():
-                self._fmt_tr4m = pack_spmm4(self.host_tr)
-            if self._fmt_tr4m is None:
-                self._fmt_tr4m = False
-        return self._fmt_tr4m
-
-    def _pallas_fw_oneshot(self):
-        if self._fmt_fw3o is None:
-            import jax
-
-            from .ops.pallas_trspmv3 import pack_stream3
-
-            with jax.ensure_compile_time_eval():
-                self._fmt_fw3o = pack_stream3(self.host_fw, mode="nat")
-            if self._fmt_fw3o is None:
-                self._fmt_fw3o = False
-        return self._fmt_fw3o
-
-    def _pallas_fw(self):
-        if self._fmt_fw is None:
-            import jax
-
-            from .ops.pallas_trspmv2 import pack_stream2
-
-            with jax.ensure_compile_time_eval():
-                self._fmt_fw = pack_stream2(self.host_fw)
-        return self._fmt_fw
-
-    def _pallas_scatter(self, which: str):
-        """Routed scatter format (lazy), the 'no blocking pays' landing
-        spot: when the v3 pack refuses (unstructured matrix) and the
-        plan is essentially unblocked (stripe widths ~1), the multipass
-        radix-routed kernel beats both the v2 stream kernel (measured
-        0.113 Gnnz/s on the thermal1-sized scatter) and the reference's
-        CPU CSC baseline (0.81 Gnnz/s, src/ref.out:120)."""
-        attr = "_fmt_sc_tr" if which == "tr" else "_fmt_sc_fw"
-        cur = getattr(self, attr)
-        if cur is None:
-            import jax
-
-            from .ops.pallas_scatter import pack_scatter
-
+    def device_format(self, which: str):
+        """Device format of one direction ("tr": A, "fw": A.T), packed
+        and placed on first use (in the matrix's own dtype — the
+        reference runs Float64/Bool/Int32 semirings,
+        test/runtests.jl:15-16 + src/hacks.jl:1)."""
+        if which not in self._dev:
             host = self.host_tr if which == "tr" else self.host_fw
-            with jax.ensure_compile_time_eval():
-                fmt = pack_scatter(host)
-            setattr(self, attr, fmt if fmt is not None else False)
-            cur = getattr(self, attr)
-        return cur if cur is not False else None
+            if host is None:
+                direction = "transposed" if which == "tr" else "forward"
+                raise ValueError(
+                    f"operator packed without the {direction} direction")
+            self._dev[which] = route_tr_spmv(host)[1]
+        return self._dev[which]
 
-    def _xla_tr(self):
-        if self._dev_tr is None:
-            import jax
+    def _perms(self):
+        """(perm, inv) on device, or (None, None) without a relabeling."""
+        if self.row_perm is None:
+            return None, None
+        if "perm" not in self._dev:
+            perm = np.asarray(self.row_perm, dtype=np.int64)
+            inv = np.empty_like(perm)
+            inv[perm] = np.arange(perm.size)
+            self._dev["perm"] = (
+                jax.device_put(perm.astype(np.int32)),
+                jax.device_put(inv.astype(np.int32)),
+            )
+        return self._dev["perm"]
 
-            # matrix's own dtype (reference runs Float64/Bool/Int32
-            # semirings, test/runtests.jl:15-16 + src/hacks.jl:1)
-            with jax.ensure_compile_time_eval():
-                self._dev_tr = bin_vbc1d(self.host_tr)
-        return self._dev_tr
-
-    def _xla_fw(self):
-        if self._dev_fw is None:
-            import jax
-
-            with jax.ensure_compile_time_eval():
-                self._dev_fw = bin_vbc1d(self.host_fw)
-        return self._dev_fw
-
-    def _pallas_ok(self, x) -> bool:
-        """The Pallas stream kernels are an f32 fast path; any other
-        semiring (f64 parity runs, bool/int32) executes on the XLA
-        device kernels in the matrix's own dtype."""
-        import jax.numpy as jnp
-
-        host = self.host_tr if self.host_tr is not None else self.host_fw
-        return (
-            self.use_pallas
-            and host.val.dtype == np.float32
-            and jnp.asarray(x).dtype == jnp.float32
-        )
+    def _call(self, which, kernel, x, alpha=None, beta=None, y=None):
+        fmt = self.device_format(which)
+        perm, inv = self._perms()
+        return _apply(kernel, fmt, jnp.asarray(x), perm, inv, alpha, beta, y)
 
     # ---- compute ---------------------------------------------------------
 
@@ -386,179 +217,31 @@ class VBCOperator:
         """y = alpha * (A.T @ x) + beta * y on device (reference
         ``mul!(y, A', x, alpha, beta)`` — with ``alpha`` actually applied;
         the reference converts but ignores it, SURVEY §2.5 quirk)."""
-        if self.host_tr is None:
-            raise ValueError("operator packed without the transposed direction")
-        if self.row_perm is not None:
-            x = self._to_permuted(x)
-        if self._pallas_ok(x):
-            fmt3o = self._pallas_tr_oneshot()
-            if fmt3o is not False:
-                from .ops.pallas_trspmv3 import tr_spmv_oneshot3
-
-                if self.row_perm is None:
-                    # alpha + beta*y fused into the kernel epilogue
-                    # (reference fuses the beta prescale,
-                    # src/multiply_1DVBC.jl:143-147) — no XLA
-                    # elementwise pass on the hot op
-                    return tr_spmv_oneshot3(fmt3o, x, alpha, beta, y)
-                out = tr_spmv_oneshot3(fmt3o, x, alpha)  # alpha fused
-                out = self._from_permuted(out)
-                return _axpby(out, None, beta, y)
-            fmt_sc = self._pallas_scatter("tr")
-            if fmt_sc is not None:
-                from .ops.pallas_scatter import tr_spmv_scatter
-
-                out = tr_spmv_scatter(fmt_sc, x)
-            else:
-                from .ops.pallas_trspmv2 import tr_spmv_pallas2
-
-                out = tr_spmv_pallas2(self._pallas_tr(), x)
-        else:
-            from .ops.xla import tr_spmv
-
-            out = tr_spmv(self._xla_tr(), x)
-        if self.row_perm is not None:
-            out = self._from_permuted(out)
-        return _axpby(out, alpha, beta, y)
+        return self._call("tr", xla.tr_spmv, x, alpha, beta, y)
 
     def mul(self, x, alpha=None, beta=None, y=None):
         """y = alpha * (A @ x) + beta * y on device (scatter-free:
         gather kernel on the A.T pack)."""
-        if self.host_fw is None:
-            raise ValueError("operator packed without the forward direction")
-        if self.row_perm is not None:
-            x = self._to_permuted(x)
-        if self._pallas_ok(x):
-            fmt3o = self._pallas_fw_oneshot()
-            if fmt3o is not False:
-                from .ops.pallas_trspmv3 import tr_spmv_oneshot3
-
-                if self.row_perm is None:
-                    return tr_spmv_oneshot3(fmt3o, x, alpha, beta, y)
-                out = tr_spmv_oneshot3(fmt3o, x, alpha)  # alpha fused
-                out = self._from_permuted(out)
-                return _axpby(out, None, beta, y)
-            fmt_sc = self._pallas_scatter("fw")
-            if fmt_sc is not None:
-                from .ops.pallas_scatter import tr_spmv_scatter
-
-                out = tr_spmv_scatter(fmt_sc, x)
-            else:
-                from .ops.pallas_trspmv2 import tr_spmv_pallas2
-
-                out = tr_spmv_pallas2(self._pallas_fw(), x)
-        else:
-            from .ops.xla import tr_spmv
-
-            out = tr_spmv(self._xla_fw(), x)
-        if self.row_perm is not None:
-            out = self._from_permuted(out)
-        return _axpby(out, alpha, beta, y)
+        return self._call("fw", xla.tr_spmv, x, alpha, beta, y)
 
     def tr_mul_chain(self, x, n_iters: int, alpha=None):
-        """y = (alpha * A.T)^n_iters @ x — iterative SpMV, fused.
-
-        Square operators with a single stripe-width class run the v3
-        fused chain: ONE Pallas grid holds the x/y slot vectors in VMEM
-        between iterations, so each iteration costs only the val+meta
-        HBM stream (no permutations, no x/y round trips — the
-        steady-state rate exceeds the reference's per-call model
-        entirely; see ops/pallas_trspmv3.py).  Other operators fall
-        back to a fori_loop of single SpMVs.
-        """
-        if self.host_tr is None:
-            raise ValueError("operator packed without the transposed direction")
-        import jax
-        import jax.numpy as jnp
-
-        if self._pallas_ok(x) and self.m == self.n and n_iters >= 1:
-            fmt3 = self._pallas_tr_chain()
-            if fmt3 is not False:
-                from .ops.pallas_trspmv3 import tr_spmv_chain3
-
-                if self.row_perm is not None:
-                    # symmetric relabeling: the whole chain runs in
-                    # permuted space, boundary permutations paid once
-                    x = self._to_permuted(x)
-                out = tr_spmv_chain3(fmt3, x, n_iters, alpha)
-                if self.row_perm is not None:
-                    out = self._from_permuted(out)
-                return out
-        a = None if alpha is None else jnp.asarray(alpha, jnp.float32)
-
-        def body(i, xc):
-            out = self.tr_mul(xc)
-            return out if a is None else out * a
-
-        return jax.lax.fori_loop(0, n_iters, body, x)
+        """y = (alpha * A.T)^n_iters @ x — iterative SpMV in one jitted
+        loop (square operators)."""
+        if self.m != self.n:
+            raise ValueError(
+                f"tr_mul_chain needs a square operator, got {self.shape}")
+        fmt = self.device_format("tr")
+        perm, inv = self._perms()
+        return _chain(fmt, jnp.asarray(x), n_iters, perm, inv, alpha)
 
     def tr_mul_mat(self, X):
-        """Y = A.T @ X (dense RHS [m, k]).
-
-        Single-class formats run the v3 k-tiled SpMM (shared 2-take
-        gather across KT=32 RHS columns, ops/pallas_spmm3.py); others
-        the v2 k-tiled kernel (ops/pallas_spmm.py).
-        """
-        if self._pallas_ok(X):
-            if self.row_perm is None:
-                fmt4 = self._pallas_spmm4()
-                if fmt4 is not False and X.shape[1] <= 128:
-                    from .ops.pallas_spmm4 import tr_spmm_pallas4
-
-                    return tr_spmm_pallas4(fmt4, X)
-                fmt3 = self._pallas_tr_oneshot()
-                if fmt3 is not False and len(fmt3.ws) == 1:
-                    from .ops.pallas_spmm3 import tr_spmm_pallas3
-
-                    return tr_spmm_pallas3(fmt3, X)
-            from .ops.pallas_spmm import tr_spmm_pallas
-
-            X2 = self._to_permuted_mat(X) if self.row_perm is not None else X
-            out = tr_spmm_pallas(self._pallas_tr(), X2)
-            if self.row_perm is not None:
-                import jax.numpy as jnp
-
-                inv = jnp.asarray(np.argsort(np.asarray(self.row_perm)))
-                out = out[inv]
-            return out
-        from .ops.xla import tr_spmm
-
-        if self.row_perm is not None:
-            import jax.numpy as jnp
-
-            perm = jnp.asarray(np.asarray(self.row_perm))
-            inv = jnp.asarray(np.argsort(np.asarray(self.row_perm)))
-            return tr_spmm(self._xla_tr(), X[perm])[inv]
-        return tr_spmm(self._xla_tr(), X)
-
-    def _to_permuted_mat(self, X):
-        import jax.numpy as jnp
-
-        return X[jnp.asarray(np.asarray(self.row_perm))]
+        """Y = A.T @ X (dense RHS [m, k])."""
+        return self._call("tr", xla.tr_spmm, X)
 
     def mul_mat(self, X):
         """Y = A @ X (dense RHS [n, k]); with auto-RCM the operator is
         A[perm][:, perm], so X is gathered in and Y scattered back out."""
-        if self._pallas_ok(X):
-            from .ops.pallas_spmm import tr_spmm_pallas
-
-            X2 = self._to_permuted_mat(X) if self.row_perm is not None else X
-            out = tr_spmm_pallas(self._pallas_fw(), X2)
-            if self.row_perm is not None:
-                import jax.numpy as jnp
-
-                inv = jnp.asarray(np.argsort(np.asarray(self.row_perm)))
-                out = out[inv]
-            return out
-        from .ops.xla import tr_spmm
-
-        if self.row_perm is not None:
-            import jax.numpy as jnp
-
-            perm = jnp.asarray(np.asarray(self.row_perm))
-            inv = jnp.asarray(np.argsort(np.asarray(self.row_perm)))
-            return tr_spmm(self._xla_fw(), X[perm])[inv]
-        return tr_spmm(self._xla_fw(), X)  # (A.T).T @ X == A @ X
+        return self._call("fw", xla.tr_spmm, X)  # (A.T).T @ X == A @ X
 
     # ---- host oracles -----------------------------------------------------
 
@@ -572,33 +255,16 @@ class VBCOperator:
 
 
 @dataclasses.dataclass
-class VBC2DOperator:
-    """Sparse matrix operator in 2-D VBC form (u x w dense tiles),
-    TPU-executable (reference ``SparseMatrixVBC{U,W}``,
-    ``src/SparseMatrixVBCs.jl:57-84`` + ``src/multiply_VBC.jl``).
+class VBC2DOperator(VBCOperator):
+    """Sparse matrix operator in 2-D VBC form (u x w dense tiles)
+    (reference ``SparseMatrixVBC{U,W}``, ``src/SparseMatrixVBCs.jl:57-84``
+    + ``src/multiply_VBC.jl``).
 
-    Execution uses the dedicated u-blocked 2-D Pallas stream kernel
-    (``ops/pallas_trspmv2d``) — tiles stay whole, one row base per tile —
-    with the XLA einsum-tile kernels as the portable fallback.  The
+    Same call surface as :class:`VBCOperator`; the device format keeps
+    tiles whole (one row base per tile, einsum tile contraction).  The
     forward direction is scatter-free like the 1-D operator: ``A.T`` is
     packed 2-D with U/W swapped and runs the same gather kernel.
     """
-
-    m: int
-    n: int
-    host_tr: object | None  # VBC2D of A (for A.T @ x)
-    host_fw: object | None  # VBC2D of A.T (for A @ x)
-    _bundle_tr: object = None  # pallas 2-D stream bundle (lazy)
-    _bundle_fw: object = None
-    _dev_tr: object = None  # XLA device format (lazy)
-    _dev_fw: object = None
-    _spmm_tr: object = None  # 1-D view stream format for SpMM (lazy)
-    _spmm_fw: object = None
-    _spmm4_tr: object = None  # v4 streaming SpMM of the 1-D view (lazy)
-    _spmm4_fw: object = None
-    _v3_tr: object = None  # v3 nat-mode format of the 1-D view (lazy)
-    _v3_fw: object = None
-    use_pallas: bool = True
 
     @staticmethod
     def from_csc(
@@ -608,7 +274,6 @@ class VBC2DOperator:
         method=None,
         method_forward=None,
         directions: str = "both",
-        use_pallas: bool | None = None,
     ) -> "VBC2DOperator":
         """Plan + pack ``A`` (and/or ``A.T``) into 2-D VBC operators.
 
@@ -616,13 +281,9 @@ class VBC2DOperator:
         widths <= W; ``method_forward`` plans A.T (defaults to the
         2-D default planner with U/W swapped).
         """
-        import jax
-
         from .api import default_2d_partitioner, vbc2d
 
         A = _as_csc(A)
-        if use_pallas is None:
-            use_pallas = jax.devices()[0].platform == "tpu"
         host_tr = host_fw = None
         if directions in ("both", "transposed"):
             m = method or default_2d_partitioner(U, W, A.val.dtype.itemsize)
@@ -633,187 +294,4 @@ class VBC2DOperator:
                 W, U, A.val.dtype.itemsize
             )
             host_fw = vbc2d(At, W, U, mf)
-        return VBC2DOperator(
-            m=A.m, n=A.n, host_tr=host_tr, host_fw=host_fw,
-            use_pallas=bool(use_pallas),
-        )
-
-    @property
-    def shape(self):
-        return (self.m, self.n)
-
-    def memory_bytes(self) -> int:
-        total = 0
-        if self.host_tr is not None:
-            total += self.host_tr.memory_bytes()
-        if self.host_fw is not None:
-            total += self.host_fw.memory_bytes()
-        return total
-
-    # ---- lazy device packing --------------------------------------------
-
-    def _pallas_tr(self):
-        if self._bundle_tr is None:
-            from .ops.pallas_trspmv2d import pack_stream_vbc2d
-
-            self._bundle_tr = pack_stream_vbc2d(self.host_tr)
-        return self._bundle_tr
-
-    def _pallas_fw(self):
-        if self._bundle_fw is None:
-            from .ops.pallas_trspmv2d import pack_stream_vbc2d
-
-            self._bundle_fw = pack_stream_vbc2d(self.host_fw)
-        return self._bundle_fw
-
-    def _xla_tr(self):
-        if self._dev_tr is None:
-            from .formats.device import bin_vbc2d
-
-            self._dev_tr = bin_vbc2d(self.host_tr)
-        return self._dev_tr
-
-    def _xla_fw(self):
-        if self._dev_fw is None:
-            from .formats.device import bin_vbc2d
-
-            self._dev_fw = bin_vbc2d(self.host_fw)
-        return self._dev_fw
-
-    def _pallas_ok(self, x) -> bool:
-        import jax.numpy as jnp
-
-        host = self.host_tr if self.host_tr is not None else self.host_fw
-        return (
-            self.use_pallas
-            and host.val.dtype == np.float32
-            and jnp.asarray(x).dtype == jnp.float32
-        )
-
-    # ---- compute ---------------------------------------------------------
-
-    def tr_mul(self, x, alpha=None, beta=None, y=None):
-        """y = alpha * (A.T @ x) + beta * y (reference
-        ``mul!(y, B', x, alpha, beta)`` 2-D, ``src/multiply_VBC.jl:104-189``;
-        ``alpha`` applied correctly — documented reference quirk)."""
-        if self.host_tr is None:
-            raise ValueError("operator packed without the transposed direction")
-        if self._pallas_ok(x):
-            fmt3 = self._v3_oneshot("tr")
-            if fmt3 is not None:
-                from .ops.pallas_trspmv3 import tr_spmv_oneshot3
-
-                out = tr_spmv_oneshot3(fmt3, x)
-            else:
-                from .ops.pallas_trspmv2d import tr_spmv_pallas_2d
-
-                out = tr_spmv_pallas_2d(self._pallas_tr(), x)
-        else:
-            from .ops.xla import tr_spmv
-
-            out = tr_spmv(self._xla_tr(), x)
-        return _axpby(out, alpha, beta, y)
-
-    def mul(self, x, alpha=None, beta=None, y=None):
-        """y = alpha * (A @ x) + beta * y (scatter-free: gather kernel
-        on the 2-D pack of A.T)."""
-        if self.host_fw is None:
-            raise ValueError("operator packed without the forward direction")
-        if self._pallas_ok(x):
-            fmt3 = self._v3_oneshot("fw")
-            if fmt3 is not None:
-                from .ops.pallas_trspmv3 import tr_spmv_oneshot3
-
-                out = tr_spmv_oneshot3(fmt3, x)
-            else:
-                from .ops.pallas_trspmv2d import tr_spmv_pallas_2d
-
-                out = tr_spmv_pallas_2d(self._pallas_fw(), x)
-        else:
-            from .ops.xla import tr_spmv
-
-            out = tr_spmv(self._xla_fw(), x)
-        return _axpby(out, alpha, beta, y)
-
-    def _v3_oneshot(self, which: str):
-        """nat-mode v3 stream format of the 1-D view (lazy; False when
-        pack_stream3 refuses the view or :func:`_v3_view_worthwhile`
-        says the dedicated u-blocked kernel wins — the shared guard
-        route_tr_spmv_2d uses, with the measurements)."""
-        attr = "_v3_tr" if which == "tr" else "_v3_fw"
-        cur = getattr(self, attr)
-        if cur is None:
-            from .ops.pallas_trspmv3 import pack_stream3
-
-            host = self.host_tr if which == "tr" else self.host_fw
-            fmt = pack_stream3(host.to_1d_view(), mode="nat")
-            if not _v3_view_worthwhile(fmt):
-                fmt = None  # dedicated u-blocked kernel wins (see guard)
-            setattr(self, attr, fmt if fmt is not None else False)
-            cur = getattr(self, attr)
-        return cur if cur is not False else None
-
-    def _spmm4_fmt(self, which: str):
-        """v4 streaming SpMM format of the 1-D view (lazy; False when
-        out of scope) — the 2-D tile layout expands to uniform column
-        stripes with consecutive y rows, exactly v4's contract."""
-        attr = "_spmm4_tr" if which == "tr" else "_spmm4_fw"
-        cur = getattr(self, attr, None)
-        if cur is None:
-            import jax
-
-            from .ops.pallas_spmm4 import pack_spmm4
-
-            host = self.host_tr if which == "tr" else self.host_fw
-            with jax.ensure_compile_time_eval():
-                fmt = pack_spmm4(host.to_1d_view())
-            setattr(self, attr, fmt if fmt is not None else False)
-            cur = getattr(self, attr)
-        return cur if cur is not False else None
-
-    def tr_mul_mat(self, X):
-        """Y = A.T @ X (dense RHS [m, k]; v4 streaming SpMM on the 1-D
-        view when it qualifies, else the v2 k-tiled kernel)."""
-        if self._pallas_ok(X):
-            fmt4 = self._spmm4_fmt("tr")
-            if fmt4 is not None and X.shape[1] <= 128:
-                from .ops.pallas_spmm4 import tr_spmm_pallas4
-
-                return tr_spmm_pallas4(fmt4, X)
-            from .ops.pallas_spmm import tr_spmm_pallas
-            from .ops.pallas_trspmv2 import pack_stream2
-
-            if self._spmm_tr is None:
-                self._spmm_tr = pack_stream2(self.host_tr.to_1d_view())
-            return tr_spmm_pallas(self._spmm_tr, X)
-        from .ops.xla import tr_spmm
-
-        return tr_spmm(self._xla_tr(), X)
-
-    def mul_mat(self, X):
-        """Y = A @ X (dense RHS [n, k])."""
-        if self._pallas_ok(X):
-            fmt4 = self._spmm4_fmt("fw")
-            if fmt4 is not None and X.shape[1] <= 128:
-                from .ops.pallas_spmm4 import tr_spmm_pallas4
-
-                return tr_spmm_pallas4(fmt4, X)
-            from .ops.pallas_spmm import tr_spmm_pallas
-            from .ops.pallas_trspmv2 import pack_stream2
-
-            if self._spmm_fw is None:
-                self._spmm_fw = pack_stream2(self.host_fw.to_1d_view())
-            return tr_spmm_pallas(self._spmm_fw, X)
-        from .ops.xla import tr_spmm
-
-        return tr_spmm(self._xla_fw(), X)
-
-    # ---- host oracles -----------------------------------------------------
-
-    def host_tr_mul(self, x):
-        return self.host_tr.tr_mul(x)
-
-    def host_mul(self, x):
-        if self.host_fw is not None:
-            return self.host_fw.tr_mul(x)  # (A.T).T @ x == A @ x
-        return self.host_tr.mul(x)
+        return VBC2DOperator(m=A.m, n=A.n, host_tr=host_tr, host_fw=host_fw)

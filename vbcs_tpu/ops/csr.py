@@ -1,6 +1,6 @@
 """CSC/CSR device baseline kernels.
 
-The TPU analog of the reference's un-blocked CSC TrSpMV baseline
+The device analog of the reference's un-blocked CSC TrSpMV baseline
 (``src/TrSpMV.jl:1-20``), used as the comparison point in benchmarks
 (``bin/test_table.jl:34-44``): a flat gather + segment-sum over the raw
 CSC arrays, with no block structure.

@@ -1,23 +1,22 @@
-"""Multi-chip VBC SpMV/SpMM over a `jax.sharding.Mesh`.
+"""Multi-device VBC SpMV/SpMM over a `jax.sharding.Mesh`.
 
 The reference's only parallelism is shared-memory dynamic stripe
-scheduling (`src/multiply_1DVBC.jl:169-177`).  The TPU-native
-distribution story (BASELINE.json north star) re-designs that as SPMD
+scheduling (`src/multiply_1DVBC.jl:169-177`).  Here that becomes SPMD
 over a device mesh:
 
 * the *block streams* of every width class are partitioned contiguously
   across devices (blocks are stored stripe-ordered, so each shard owns a
   contiguous stripe range — the moral equivalent of the reference's
   stripe scheduling, but statically balanced by block count);
-* `x` is replicated (all-gathered once over ICI; halo-exchange variant
-  planned — stripes only read `x[idx]` rows their blocks touch);
+* `x` is replicated (a halo-exchange variant is planned — stripes only
+  read the `x[idx]` rows their blocks touch);
 * each device computes its partial `y` by the same gather → multiply →
   segment-sum → scatter pipeline, and partials combine with a single
-  `psum` over ICI (stripe outputs are disjoint, so the sum merely
-  superimposes disjoint slices plus zeros).
+  `psum` (stripe outputs are disjoint, so the sum merely superimposes
+  disjoint slices plus zeros).
 
-Everything is `shard_map`-ped and jit-compiled; XLA lays the collectives
-on ICI.
+Everything is `shard_map`-ped and jit-compiled; XLA hands the
+collectives to the device's collective library (NCCL on GPUs).
 """
 
 from __future__ import annotations

@@ -81,8 +81,7 @@ def _cost_closure(model, W: int, heights: np.ndarray | None):
         gamma = model.gamma_table(W)
 
         if np.any(gamma != 0):
-            # TPU extension: per-EXCESS-8-block-group term (v3 kernel
-            # lane columns beyond the first per stripe); see
+            # per-EXCESS-8-block-group term; see
             # ColumnBlockComponentCostModel.gamma_col
             def cost_fn(widths, counts, nnzs):
                 excess = np.maximum(-(-counts[0] // 8) - 1, 0)
@@ -148,7 +147,7 @@ def _native_tables(model, W, heights):
     """(alpha_tab, beta_tabs [R,W], gamma_tab|None, weights|None,
     delta_tab|None) for the C++ DP, or None if the model shape isn't
     table-expressible.  delta charges per EXCESS 8-block group (the
-    gamma_col TPU extension)."""
+    gamma_col extension)."""
     ws = np.arange(1, W + 1, dtype=np.float64)
     if isinstance(model, ColumnBlockComponentCostModel):
         gam = model.gamma_table(W)

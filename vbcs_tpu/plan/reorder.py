@@ -1,11 +1,11 @@
-"""Row/column reordering for x-window locality.
+"""Row/column reordering for x-gather locality.
 
-The Pallas TrSpMV kernel gathers x through small aligned windows
-(ops/pallas_trspmv2.py), so its throughput depends on the *row
-bandwidth* of each chunk — a TPU-specific locality cost with no direct
-analog in the reference (whose CPU caches absorb scattered access; the
-closest analog is the cache-resident working set its autotuner assumes,
-``src/costs.jl:44-60``).  These reorderings bound it:
+TrSpMV gathers ``x`` at every block's row, so the *row bandwidth* of
+neighbouring stripes decides how scattered those reads are — a locality
+cost with no direct analog in the reference (whose CPU caches absorb
+scattered access; the closest analog is the cache-resident working set
+its autotuner assumes, ``src/costs.jl:44-60``).  These reorderings
+bound it:
 
 * :func:`rcm_rows` — reverse Cuthill-McKee on the symmetrized graph
   (square matrices), the classical bandwidth reducer;
@@ -84,17 +84,16 @@ def rcm_symmetric(A: CSC):
 
 
 def window_badness(B, ng: int = 1024, max_w: int = 6) -> float:
-    """Fraction of stream vregs whose x-gather would exceed ``max_w``
-    aligned 1024-element windows — a cheap pack-free estimate of how
-    much of the matrix would fall off the Pallas stream path.
-
-    Approximates the packers' chunking: stripes in order, ~128 block
-    groups per vreg, window = distinct ``row >> 10`` tiles."""
+    """Fraction of runs of 128 consecutive 8-block groups whose rows
+    span more than ``max_w`` aligned 1024-row windows — a cheap
+    pack-free estimate of how scattered the x-gather of the block
+    stream is.  The auto-RCM decision in ``VBCOperator.from_csc`` reads
+    it."""
     nb = (B.pos[1:] - B.pos[:-1]).astype(np.int64)
     ngr = np.maximum(1, -(-nb // 8))
     grp_stripe = np.repeat(np.arange(nb.size), ngr)
-    vreg_of_grp = np.arange(grp_stripe.size) // 128
-    # distinct tiles per vreg over each stripe's row range (cheap proxy:
+    run_of_grp = np.arange(grp_stripe.size) // 128
+    # window span per run over each stripe's row range (cheap proxy:
     # use min/max row of the stripe)
     lo = np.zeros(nb.size, dtype=np.int64)
     hi = np.zeros(nb.size, dtype=np.int64)
@@ -102,10 +101,10 @@ def window_badness(B, ng: int = 1024, max_w: int = 6) -> float:
         sl = B.idx[B.pos[l]:B.pos[l + 1]]
         if sl.size:
             lo[l], hi[l] = sl.min() >> 10, sl.max() >> 10
-    nvreg = int(vreg_of_grp.max()) + 1 if vreg_of_grp.size else 1
-    vlo = np.full(nvreg, np.iinfo(np.int64).max)
-    vhi = np.zeros(nvreg, dtype=np.int64)
-    np.minimum.at(vlo, vreg_of_grp, lo[grp_stripe])
-    np.maximum.at(vhi, vreg_of_grp, hi[grp_stripe])
+    nrun = int(run_of_grp.max()) + 1 if run_of_grp.size else 1
+    vlo = np.full(nrun, np.iinfo(np.int64).max)
+    vhi = np.zeros(nrun, dtype=np.int64)
+    np.minimum.at(vlo, run_of_grp, lo[grp_stripe])
+    np.maximum.at(vhi, run_of_grp, hi[grp_stripe])
     spans = np.maximum(vhi - np.minimum(vlo, vhi) + 1, 1)
     return float((spans > max_w).mean())
